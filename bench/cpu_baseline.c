@@ -4,7 +4,7 @@
  * Implements the same per-output arithmetic as the reference's scalar build
  * (complex int16 MAC FIR with decimation + Q.14 derotation, then conjugate
  * product + LUT atan2 discriminator) as a straight-line single-thread C
- * program, so the TPU framework's throughput can be compared against the
+ * program, so the JAX framework's throughput can be compared against the
  * reference design point on this host. Written fresh against the numeric
  * contract in SURVEY.md section 2.1; not a copy of the reference sources.
  *

@@ -1,7 +1,7 @@
 """Bit-exact numpy oracles of the reference C arithmetic.
 
 These are behavioral transcriptions of the reference's documented numeric
-contracts (cited per function), used ONLY as test oracles for the TPU
+contracts (cited per function), used ONLY as test oracles for the JAX
 kernels. They are deliberately slow, obvious, and loop-based.
 """
 

@@ -326,40 +326,6 @@ def test_multifm_cli_startup_mute(tmp_path):
     assert [m.data for m in msgs] == [b"AFTER MUTE\x00"]
 
 
-def test_multifm_cli_pallas_with_debug_tap_switches_backend(tmp_path, capsys):
-    """signalDebugFile + --backend pallas must switch to xla, not crash
-    (the fused kernel never materializes the baseband)."""
-    from tsl_sdr_tpu.utils.filter_design import firdes_low_pass
-
-    fs, decim = 1_000_000, 40
-    rng = np.random.default_rng(5)
-    iq = rng.integers(-8000, 8000, size=(400_000, 2),
-                      dtype=np.int64).astype(np.int16)
-    iq_path = tmp_path / "c.cs16"
-    iq.reshape(-1).tofile(iq_path)
-    dbg = tmp_path / "ch0.dbg"
-    cfg = {
-        "device": {"type": "file", "filename": str(iq_path),
-                   "fileFormat": "cs16"},
-        "sampleRateHz": fs,
-        "centerFreqHz": 929_500_000,
-        "decimationFactor": decim,
-        "lpfTaps": list(map(float, firdes_low_pass(1.0, fs, 12_500, 9_000))),
-        "channels": [
-            {"outFifo": str(tmp_path / "ch0.pcm"),
-             "chanCenterFreq": 929_600_000,
-             "signalDebugFile": str(dbg)},
-        ],
-    }
-    p = tmp_path / "m.json"
-    p.write_text(json.dumps(cfg))
-    rc = multifm_cli.main([str(p), "--backend", "pallas",
-                           "--block-size", "131072"])
-    assert rc == 0
-    assert "switching backends" in capsys.readouterr().err
-    assert dbg.stat().st_size > 0
-
-
 def test_cli_config_errors_are_clean(tmp_path, capsys):
     """Malformed/incomplete configs exit 2 with a diagnostic — no
     traceback (the reference prints and exits, multifm.c:105-146)."""

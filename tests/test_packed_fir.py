@@ -1,6 +1,6 @@
 """Lane-packed fast tier (ops/packed_fir + fm_from_baseband) vs float64 oracle.
 
-The packed tier is the production TPU path; it must track a plain float64
+The packed tier is the production path; it must track a plain float64
 windowed-FIR + rotate + discriminate oracle to within ~1 PCM LSB, and be
 invariant to block boundaries.
 """
@@ -139,7 +139,7 @@ def test_fm_from_baseband_equals_rotate_then_fm():
 
 
 def test_exact_packed_matches_exact_tier():
-    """The MXU integer path == the reference-exact scan tier, bit for bit."""
+    """The matmul integer path == the reference-exact scan tier, bit for bit."""
     import shutil
 
     import pytest

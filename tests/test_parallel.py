@@ -2,9 +2,8 @@ import numpy as np
 import jax
 import pytest
 
-from tsl_sdr_tpu.models.channelizer import MultifmChain
 from tsl_sdr_tpu.parallel.mesh import make_mesh
-from tsl_sdr_tpu.parallel.channelizer import make_sharded_multifm
+from tsl_sdr_tpu.testing.numerics import check_sharded_multifm
 from tsl_sdr_tpu.utils.filter_design import firdes_low_pass
 
 pytestmark = pytest.mark.skipif(
@@ -16,36 +15,10 @@ def _equality_case(nr_channels, time_shards, ch_shards, taps=33, seed=60):
     """Sharded output == primed single-device run, element-for-element
     (within the documented f32-reassociation 1-LSB slack), at the given
     mesh shape and channel count."""
-    fs, d = 128_000, 4
-    lpf = firdes_low_pass(1.0, fs, 12_000, 8_000)[:taps]
-    rng = np.random.default_rng(seed)
-    offsets = rng.integers(-fs // 3, fs // 3, size=nr_channels)
-    chain = MultifmChain(lpf, offsets, fs, d, exact=False)
-
-    seg = 512 * d
-    s = seg * time_shards
-    iq = rng.integers(-12000, 12000, size=(s, 2), dtype=np.int64).astype(np.int16)
-
-    # single-device reference: primed chain over the same stream
-    c_len = chain.carry_len
-    q = chain.block_quantum
-    state = chain.init_state(prefix=iq[:c_len])
-    _, pcm_single = chain.step(state, iq[c_len:][: (s - c_len) // q * q])
-    pcm_single = np.asarray(pcm_single)
-
-    mesh = make_mesh(time=time_shards, channels=ch_shards,
-                     devices=jax.devices()[: time_shards * ch_shards])
-    fn = make_sharded_multifm(chain.packed_plan, mesh)
-    pcm_sharded = np.asarray(fn(iq))
-
-    # both paths index outputs globally: output k = input samples [k*d, k*d+T)
-    m0 = 2  # skip the FM-history cold-start edge
-    m1 = pcm_single.shape[1] - 2
-    a = pcm_single[:, m0:m1].astype(np.int32)
-    b = pcm_sharded[:, m0:m1].astype(np.int32)
-    diff = np.abs(a - b)
-    assert (diff <= 1).mean() > 0.999, (diff.max(), (diff > 1).mean())
-    assert (diff == 0).mean() > 0.98
+    r = check_sharded_multifm(nr_channels, time_shards, ch_shards, taps=taps,
+                              decimation=4, fs=128_000, segment=512 * 4,
+                              seed=seed)
+    assert r["equal_ok"], r
 
 
 @pytest.mark.parametrize("time_shards,ch_shards", [(4, 2), (2, 4), (8, 1)])
@@ -60,42 +33,6 @@ def test_sharded_matches_single_device_64ch():
                    seed=61)
     _equality_case(nr_channels=64, time_shards=4, ch_shards=2, taps=17,
                    seed=62)
-
-
-def test_sharded_pallas_matches_single_device():
-    """The fused PALLAS kernel under shard_map (time sharding + carry halo)
-    equals the primed single-device pallas chain."""
-    from tsl_sdr_tpu.parallel.channelizer import make_sharded_multifm_pallas
-
-    fs, d = 128_000, 4
-    lpf = firdes_low_pass(1.0, fs, 12_000, 8_000)[:33]
-    rng = np.random.default_rng(63)
-    offsets = rng.integers(-fs // 3, fs // 3, size=8)
-    chain = MultifmChain(lpf, offsets, fs, d, exact=False, backend="pallas")
-
-    time_shards = 8
-    seg = 512 * d
-    s = seg * time_shards
-    iq = rng.integers(-12000, 12000, size=(s, 2),
-                      dtype=np.int64).astype(np.int16)
-
-    c_len = chain.carry_len
-    q = chain.block_quantum
-    state = chain.init_state(prefix=iq[:c_len])
-    _, pcm_single = chain.step(state, iq[c_len:][: (s - c_len) // q * q])
-    pcm_single = np.asarray(pcm_single)
-
-    mesh = make_mesh(time=time_shards, channels=1, devices=jax.devices()[:8])
-    fn = make_sharded_multifm_pallas(chain.packed_plan, mesh)
-    pcm_sharded = np.asarray(fn(iq))
-
-    m0 = 2
-    m1 = pcm_single.shape[1] - 2
-    a = pcm_single[:, m0:m1].astype(np.int32)
-    b = pcm_sharded[:, m0:m1].astype(np.int32)
-    diff = np.abs(a - b)
-    assert (diff <= 1).mean() > 0.999, (diff.max(), (diff > 1).mean())
-    assert (diff == 0).mean() > 0.98
 
 
 def test_multihost_device_layout():

@@ -190,7 +190,7 @@ class TestPocsagFastScan:
 class TestPocsagExactPackedChain:
     def test_bitexact_mxu_path_decodes_identically(self):
         """BASELINE north star: POCSAG through the fast bit-exact tier
-        (int16 MXU FIR + native rotator + LUT FM oracle) decodes the same
+        (int16 matmul FIR + native rotator + LUT FM oracle) decodes the same
         messages as the reference-exact scan tier."""
         import shutil
 

@@ -73,34 +73,6 @@ def test_fast_tier_tracks_exact():
     assert rms_err / rms_sig < 1e-3
 
 
-def test_pallas_resampler_matches_fast_tier():
-    """Fused Pallas kernel (interpret on CPU) == XLA frame-matmul tier."""
-    from tsl_sdr_tpu.ops.pallas_resampler import resample_capture_pallas
-    from tsl_sdr_tpu.utils.filter_design import design_rational_resampler_filter
-
-    coeffs = design_rational_resampler_filter(16, 25, 0.4)
-    plan = polyphase.make_resampler_plan(
-        q14.quantize_q14(coeffs), 16, 25, block_out_target=2048
-    )
-    rng = np.random.default_rng(62)
-    n = 40 * 8 * plan.d_rep
-    x = rng.integers(-12000, 12000, size=n, dtype=np.int64).astype(np.int16)
-    got = np.asarray(resample_capture_pallas(plan, x, tile_frames=32))
-
-    st = polyphase.init_resampler_state(plan, prefix=x[: plan.carry_len])
-    pos = plan.carry_len
-    xx = np.concatenate([x, np.zeros(plan.block_in, np.int16)])
-    want = []
-    while pos + plan.block_in <= len(xx):
-        st, o = polyphase.resample_step(
-            plan, st, xx[pos : pos + plan.block_in], exact=False
-        )
-        want.append(np.asarray(o))
-        pos += plan.block_in
-    want = np.concatenate(want)[: got.shape[0]]
-    np.testing.assert_allclose(got, want, atol=0.01)
-
-
 def test_exact_packed_impl_matches_gather_oracle():
     """The default lane-packed exact tier is bit-identical to the
     per-output window-gather oracle (wrap-int32 sums are order-free)."""

@@ -113,7 +113,7 @@ def test_wire_exact_tier_rtl_u8():
 @pytest.mark.parametrize("fmt", ALL_8BIT)
 def test_wire_exact_streaming_on_device_widen(fmt):
     """The bit-exact STREAMING engine ships raw wire blocks and widens in
-    the jitted MXU dispatch's first stage (channelizer
+    the jitted matmul dispatch's first stage (channelizer
     ``_exact_packed_fir_wire``); output must equal the same stream pushed
     as host-widened cs16, bit-for-bit, including the wire-zero padded
     flush tail."""

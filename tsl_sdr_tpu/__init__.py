@@ -1,7 +1,7 @@
-"""tsl_sdr_tpu — a TPU-native software-defined-radio framework.
+"""tsl_sdr_tpu — a JAX software-defined-radio framework.
 
 A from-scratch re-design (not a port) of the capability surface of
-pvachon/tsl-sdr (CPU, C11, fixed point) for TPU hardware via JAX/XLA/Pallas:
+pvachon/tsl-sdr (CPU, C11, fixed point) for accelerators via JAX/XLA:
 
 * ``ops``      — DSP kernels: Q.14 fixed-point math, direct-FIR channelizer,
                  polyphase rational resampler, FM discriminator, Costas loop,
@@ -9,7 +9,7 @@ pvachon/tsl-sdr (CPU, C11, fixed point) for TPU hardware via JAX/XLA/Pallas:
 * ``models``   — signal-chain "models": multifm channelizer, resampler,
                  POCSAG / FLEX / AIS protocol decoders, BCH(31,21) codec.
 * ``parallel`` — device-mesh sharding: channel + time-block sharding with
-                 overlap-save halo exchange over ICI collectives.
+                 overlap-save halo exchange over device collectives.
 * ``runtime``  — host streaming executor and native (C++) IO runtime.
 * ``utils``    — config (reference-JSON compatible), IQ file formats,
                  filter design, counters.
@@ -18,7 +18,7 @@ Two numeric tiers run through every kernel:
 
 * ``exact=True``  — integer arithmetic replicating the reference C pipeline
   bit-for-bit (Q.14 "Q.15" quirk included) for decode-parity work.
-* ``exact=False`` — float32/bfloat16 MXU paths with analytic (drift-free)
+* ``exact=False`` — float32/int16 matmul paths with analytic (drift-free)
   oscillators: the production tier, faster and *more* accurate than the
   reference.
 """

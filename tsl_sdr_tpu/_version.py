@@ -1,4 +1,4 @@
-"""Version stamping — the TPU-repo equivalent of the reference's
+"""Version stamping — this repo's equivalent of the reference's
 build-time ``git describe`` stamp (``/root/reference/CMakeLists.txt:37-47``
 writes ``tsl/version.h`` from ``git describe --always --dirty`` at build
 time; the CPack packaging at ``CMakeLists.txt:110-125`` ships it).

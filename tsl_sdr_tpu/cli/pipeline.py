@@ -78,6 +78,11 @@ def _check_resume_offset(path, fmt, resume_samples):
 
 
 
+# share of the card's memory each of a primary/standby pair reserves: two
+# JAX processes at the default three quarters cannot both start on one card
+STANDBY_MEM_FRACTION = "0.45"
+
+
 def build_argparser():
     from tsl_sdr_tpu.cli import cli_version
 
@@ -89,8 +94,6 @@ def build_argparser():
     p.add_argument("-o", "--output", default=None, help="messages JSON file")
     p.add_argument("--exact", action="store_true",
                    help="bit-exact integer front-end tier")
-    p.add_argument("--backend", default="auto",
-                   choices=["auto", "xla", "pallas", "pallas-high"])
     p.add_argument("--follow", action="store_true",
                    help="consume the IQ source LIVE (FIFO, growing file, "
                         "or hardware device): decode as data arrives, "
@@ -145,14 +148,17 @@ def build_argparser():
                         "--state-file): warm the device, then WAIT for the "
                         "state file to appear — written by a terminating "
                         "primary — before restoring and attaching to the "
-                        "stream. Per-session device startup (seconds to "
-                        "minutes on shared/tunneled slices) is paid while "
-                        "the primary still serves, so failover costs "
-                        "seconds")
+                        "stream. Compilation and device set-up are paid "
+                        "while the primary still serves, so failover costs "
+                        "seconds. Both processes share one card: this "
+                        "process defaults XLA_PYTHON_CLIENT_MEM_FRACTION "
+                        "to %s, and the primary must be started with the "
+                        "same setting (README, 'Hot standby')" %
+                        STANDBY_MEM_FRACTION)
     p.add_argument("--no-warm", action="store_true",
                    help="skip the device warm block before a --follow "
                         "stream (default: run one throwaway zeros block "
-                        "first so per-session device startup stalls land "
+                        "first so compilation and device set-up land "
                         "in startup, not on live traffic)")
     p.add_argument("--idle-exit", type=float, default=1.0,
                    help="with --follow on a regular file: stop after the "
@@ -179,6 +185,16 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    if args.standby:
+        import os
+
+        # a standby warms while the primary holds its share of the card;
+        # JAX reads this when the backend starts, so set it before that
+        os.environ.setdefault("XLA_PYTHON_CLIENT_MEM_FRACTION",
+                              STANDBY_MEM_FRACTION)
+    from tsl_sdr_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
 
     is_main = True
     if args.distributed is not None:
@@ -319,7 +335,7 @@ def main(argv=None):
     pipe = ReceivePipeline(
         cfg.lpf_taps, cfg.center_freq_hz, cfg.sample_rate_hz,
         cfg.decimation_factor, specs,
-        exact=args.exact, backend=args.backend,
+        exact=args.exact,
         block_size=args.block_size,
         inflight_depth=args.inflight_depth,
         mesh=mesh,
@@ -390,13 +406,13 @@ def main(argv=None):
                 pass  # not the main thread: keep default handlers
             if not args.no_warm:
                 # before restore: warming needs a pristine stream, and a
-                # resume leg benefits most (its session startup stall
-                # would otherwise land on the backlog behind the FIFO)
+                # resume leg benefits most (its compile and set-up would
+                # otherwise land on the backlog behind the FIFO)
                 try:
                     warm_s = pipe.warm_device()
                 except KeyboardInterrupt:
-                    # a stop request while absorbing the session startup
-                    # stall: nothing streamed yet, nothing to save
+                    # a stop request while warming: nothing streamed yet,
+                    # nothing to save
                     print("pipeline-tpu: interrupted during device warm",
                           file=sys.stderr)
                     return 0

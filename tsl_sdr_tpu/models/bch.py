@@ -14,7 +14,7 @@ polynomial is the LCM of the minimal polynomials of alpha^1..alpha^{2t}
 (conjugacy-class expansion), and decode is vectorized numpy over arbitrary
 batches of words — the all-word syndrome computation is one masked-XOR
 matrix reduction, the Chien search one [W, n] table evaluation. This shape
-drops straight onto the TPU VPU if bit volume ever warrants it; at pager
+drops straight onto the device if bit volume ever warrants it; at pager
 bit rates the host does fine (SURVEY §7 phase 4).
 """
 

@@ -93,7 +93,7 @@ class CostasChannelizer:
         """Whole-capture path with the native serial PLL (production host
         Costas, ~30 Msps/channel vs ~1 Msps for the device scan).
 
-        TPU does the sample-rate work (packed FIR bank + integer-NCO
+        device does the sample-rate work (packed FIR bank + integer-NCO
         derotation); the per-sample feedback loop runs in C. Returns
         int16 IQ [C, K, 2].
         """

@@ -19,7 +19,7 @@ Replicates the reference receiver's behavior (``pager/pager_pocsag.c``):
   full search (``:508-537``).
 
 This is the host-tier FSM (sample-sequential, like the wire protocol itself);
-the TPU front-end (channelize/resample/demod) feeds it PCM. A vectorized
+the device front-end (channelize/resample/demod) feeds it PCM. A vectorized
 block decoder rides on top for throughput work.
 """
 

@@ -33,49 +33,18 @@ class ResamplerChain:
         dc_block_pole: float | None = None,
         block_out: int = 1024,
         exact: bool = True,
-        backend: str = "auto",
     ):
         """``lpf_coeffs``: float taps (quantized to Q.14 like
-        ``resampler/resampler.c:145-151``).
-
-        ``backend`` (fast tier only): "auto" picks the fused Pallas
-        packed-row kernel for whole-capture runs on TPU (+78% measured,
-        bench/r4_resampler_lab.py) and XLA elsewhere; "xla"/"pallas"
-        force. The exact tier always runs the XLA int16 path."""
+        ``resampler/resampler.c:145-151``)."""
         self._coeffs_q14 = q14.quantize_q14(lpf_coeffs)
         self.plan = polyphase.make_resampler_plan(
             self._coeffs_q14, interpolate, decimate, block_out_target=block_out
         )
         self.exact = exact
-        if backend not in ("auto", "xla", "pallas"):
-            raise ValueError(backend)
-        self.backend = backend
-        self._pallas = None
         self.dc_pole = dc_block_pole
         self.dc_coeff = (
             dc_blocker.make_pole_coeff(dc_block_pole) if dc_block_pole else None
         )
-
-    _PALLAS_TR = 1024
-    _PALLAS_PRECISION = "high"   # tests pin "highest" (interpret mode
-    # emulates DEFAULT-precision dots with bf16 accumulation, which the
-    # real MXU does not do — see ops/pallas_resampler)
-
-    def _pallas_capture_ok(self, n_rows_main: int) -> bool:
-        if self.exact or not self.plan.k_row or self.plan.phase0 != 0:
-            return False
-        if self.backend == "xla":
-            return False
-        if self.backend == "pallas":
-            return n_rows_main >= self._PALLAS_TR
-        # auto: TPU only, and only when at least one full tile exists
-        import jax as _jax
-
-        try:
-            on_tpu = _jax.devices()[0].platform == "tpu"
-        except Exception:  # noqa: BLE001
-            on_tpu = False
-        return on_tpu and n_rows_main >= self._PALLAS_TR
 
     def init_state(self, prefix=None) -> ResamplerChainState:
         return ResamplerChainState(
@@ -120,56 +89,6 @@ class ResamplerChain:
             )
         return self._tail_plans[tail_use]
 
-    def _run_pallas(self, pcm):
-        """Whole-capture path through the fused Pallas packed-row kernel:
-        'total' rows are pcm itself (row 0 = carry history ++ head, the
-        same alignment as the XLA tier's [prefix ++ blocks] concat), the
-        main M' = floor-to-tile rows go through ONE streaming kernel call,
-        and the remainder rides the existing XLA tail-plan machinery —
-        output stream is value-identical to the XLA fast tier."""
-        from tsl_sdr_tpu.ops.pallas_resampler import PallasResampler
-
-        plan = self.plan
-        row = plan.row_in
-        tr = self._PALLAS_TR
-        m_rows = (pcm.shape[0] - row) // row + 1  # rows fully backed by pcm
-        m_main = (m_rows // tr) * tr
-        if self._pallas is None:
-            self._pallas = PallasResampler(plan, tile_rows=tr,
-                                           precision=self._PALLAS_PRECISION)
-        pr = self._pallas
-        carry = pcm[:row][None, :].astype(jnp.int16)
-        need = (m_main + 1) * row  # +1 row: the last output's spill source
-        body = pcm[row:need]
-        pad = need - row - body.shape[0]
-        if pad > 0:
-            body = jnp.concatenate([body, jnp.zeros((pad,), jnp.int16)])
-        _, out = pr.step(carry, body)
-        outs = [out.reshape(-1)]
-        # remainder (beyond the tiled rows) via the XLA tail plan. The
-        # tail's row grid starts at (pos - carry_len): its 'total' is
-        # [prefix(carry_len) ++ block], so pos must sit carry_len PAST the
-        # row boundary for the grid to continue at m_main*row exactly.
-        pos = m_main * row + plan.carry_len
-        tail_use = max(0, pcm.shape[0] - pos) // plan.d_rep * plan.d_rep
-        dc_state = dc_blocker.init_dc_blocker_state()
-        if tail_use:
-            tp = self._tail_plan(tail_use)
-            assert tp.carry_len <= pos, (tp.carry_len, pos)
-            t_state = polyphase.init_resampler_state(
-                tp, prefix=pcm[pos - tp.carry_len: pos]
-            )
-            _, t_out = polyphase.resample_step(
-                tp, t_state, pcm[pos: pos + tail_use], exact=False
-            )
-            outs.append(t_out.reshape(-1))
-        out = jnp.concatenate(outs) if len(outs) > 1 else outs[0]
-        if self.dc_coeff is not None:
-            _, out = dc_blocker.dc_blocker_step_fast(
-                dc_state, out.astype(jnp.int16), self.dc_coeff
-            )
-        return out
-
     def _run_blocks(self, pcm):
         """Shared whole-stream driver: full blocks via the compiled scan +
         one shorter tail block threaded through the same carry state, so no
@@ -177,13 +96,6 @@ class ResamplerChain:
         n_blocks*block_in used to vanish entirely)."""
         c_len = self.plan.carry_len
         n_in = self.plan.block_in
-        row = self.plan.row_in
-        if self.plan.k_row and not self.exact:
-            m_rows = (pcm.shape[0] - row) // row + 1 if pcm.shape[0] >= row \
-                else 0
-            if self._pallas_capture_ok((m_rows // self._PALLAS_TR)
-                                       * self._PALLAS_TR):
-                return self._run_pallas(pcm)
         usable = pcm.shape[0] - c_len
         n_blocks = usable // n_in
         if n_blocks < 1:

@@ -1,4 +1,4 @@
-// tslstream — native streaming runtime for the TPU SDR framework.
+// tslstream — native streaming runtime for the JAX SDR framework.
 //
 // C++ replacement for the runtime surface the reference builds out of the
 // external TSL library (worker_thread / work_queue / frame_alloc) plus its
@@ -15,7 +15,7 @@
 //   * writer sinks that tolerate EPIPE by dropping and counting
 //     (multifm/demod.c:93-110)
 //
-// The TPU compute path stays in JAX; this library keeps the device fed and
+// The device compute path stays in JAX; this library keeps the device fed and
 // drained from ordinary POSIX streams without Python in the per-byte loop.
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in the image).
@@ -345,7 +345,7 @@ void tsl_sink_free(void* h) {
 // decimated output with round-half-up Q.28->Q.14 rounding and NO
 // renormalization (filter/direct_fir.c:152-172) — an inherently serial
 // integer recurrence. It is input-independent, so the whole per-block
-// sequence is precomputed here (a few ns per step) and handed to the TPU
+// sequence is precomputed here (a few ns per step) and handed to the device
 // as a plain tensor.
 //
 // rot0/incr: [C][2] (re, im); out: [n][C][2] int16 — out[k] is the rotator

@@ -1,4 +1,4 @@
-"""DSP kernel library (L2/L3 of the reference layer map, re-designed for TPU).
+"""DSP kernel library (L2/L3 of the reference layer map, re-designed for accelerators).
 
 Everything here is a pure function over JAX arrays: streaming state is an
 explicit pytree threaded through ``(state, block) -> (state, out)`` calls so

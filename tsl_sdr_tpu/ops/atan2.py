@@ -9,7 +9,7 @@ pins spot values against the published table.
 
 Two implementations:
 
-* :func:`fast_atan2` — vectorized jnp/f32, jit/TPU friendly (gathers on VPU).
+* :func:`fast_atan2` — vectorized jnp/f32, jit friendly.
 * :func:`fast_atan2_np` — numpy implementation with C float/double promotion
   semantics, used as the bit-exact host oracle.
 """

@@ -12,11 +12,11 @@ samples, where output ``k`` is::
 derotation; the tap/rotator setup is ``multifm/demod.c:205-269`` +
 ``direct_fir.c:44-87``.)
 
-TPU-native redesign: the unbounded stream becomes fixed-size blocks with an
+Accelerator redesign: the unbounded stream becomes fixed-size blocks with an
 **overlap-save carry** of the trailing ``C_len`` input samples, so each step
 is a pure function ``(state, block[N,2]) -> (state, out[K,2])`` with static
 shapes (``N % D == 0``, ``K = N // D``). Multi-channel operation stacks taps
-``[C, T]`` and rides one batched contraction (MXU in the fast tier).
+``[C, T]`` and rides one batched contraction (matmul in the fast tier).
 
 Two tiers:
 
@@ -25,11 +25,11 @@ Two tiers:
   rotator recurrence is a ``lax.scan`` producing the per-output rotator
   sequence; the MAC is a gathered int32 contraction.
 * ``fast``: float32, analytic (drift-free) oscillator indexed by absolute
-  output index, windows fed to the MXU via a strided convolution.
+  output index, windows fed to the matmul via a strided convolution.
 
 NOTE: the production fast path moved to :mod:`tsl_sdr_tpu.ops.packed_fir`
 (lane-packed int16 matmuls — see that module for why this conv formulation
-is an order of magnitude off TPU speed-of-light). This module remains the
+is an order of magnitude off the device's speed-of-light). This module remains the
 bit-exact tier and a readable reference formulation.
 """
 
@@ -243,7 +243,7 @@ def _channel_fir_exact_kernel(
 
 
 # ---------------------------------------------------------------------------
-# Fast tier (float32, MXU via strided conv, analytic oscillator)
+# Fast tier (float32, matmul via strided conv, analytic oscillator)
 # ---------------------------------------------------------------------------
 
 @functools.partial(jax.jit, static_argnames=("decimation", "nr_taps"))
@@ -270,6 +270,7 @@ def _channel_fir_fast_kernel(
         padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
         preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     )  # [1, 2C, K_full]
     acc = conv[0, :, :k_out].reshape(nr_ch, 2, k_out)
 

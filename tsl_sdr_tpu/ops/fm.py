@@ -4,7 +4,7 @@ Reference behavior (``multifm/fm_demod.c:36-83``): per sample,
 ``s = a[n] * conj(a[n-1])`` in int32, then ``phi = fast_atan2f(s_im, s_re)``
 and ``pcm[n] = (int16)((phi / pi) * 2^14)`` (C truncating cast).
 
-TPU redesign: the one-sample history is a tiny state carry; the conjugate
+Accelerator redesign: the one-sample history is a tiny state carry; the conjugate
 product and LUT atan vectorize across the whole block on the VPU. Output is
 int16 PCM in both tiers (the decoders consume int16); the ``exact`` flag only
 controls the upstream arithmetic, the discriminator itself is float32 with a
@@ -75,7 +75,7 @@ def fm_from_baseband(ar, ai, prev_r, prev_i, omega_d, nr_channels=None):
         arg(y[k] conj(y[k-1])) = arg(a[k] conj(a[k-1])) + omega_d   (mod 2pi)
 
     so we fold it into a post-atan2 constant add + wrap — no cos/sin
-    oscillator, no complex rotate. This is the TPU production path used by
+    oscillator, no complex rotate. This is the production path used by
     the fused channelizer; worst-case divergence from the rotate-then-atan2
     form is a few float32 ulp of angle.
 

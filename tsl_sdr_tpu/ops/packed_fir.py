@@ -1,15 +1,15 @@
-"""Lane-packed multi-channel decimating FIR — the TPU speed-of-light tier.
+"""Lane-packed multi-channel decimating FIR — the production tier.
 
 This is the performance-critical reformulation of the reference channelizer
 hot loop (``filter/direct_fir.c:329-417`` — per-output complex MAC over
 ``nr_taps`` taps at stride ``decimation``). The bit-exact integer tier lives
 in :mod:`tsl_sdr_tpu.ops.fir`; this module is the float32 production tier,
-designed around two TPU hardware facts:
+designed around two hardware facts of the accelerator it was first built for:
 
-1. **The VPU/MXU are 128 lanes wide.** Arrays shaped ``[N, 2]`` (IQ pairs) or
+1. **Its vector and matrix units are 128 lanes wide.** Arrays shaped ``[N, 2]`` (IQ pairs) or
    ``[K, C]`` with small C waste up to 98% of every vector register. All
    arrays here keep a trailing dimension that is a multiple of 128.
-2. **The MXU wants one large matmul, not strided windows.** The decimating
+2. **Its matrix unit wants one large matmul, not strided windows.** The decimating
    FIR is re-blocked so it becomes a dense ``[rows, ROW] @ [ROW, COLS]``
    product:
 
@@ -28,8 +28,8 @@ designed around two TPU hardware facts:
    directly to the real part ``[K, C]`` and the back half to the imaginary
    part.
 
-Matmuls run with ``Precision.HIGHEST``: XLA's default f32 matmul on TPU
-drops to bf16 passes, which is far too coarse for Q.14-scale DSP data.
+Float matmuls, where used, set ``Precision.HIGHEST``: XLA's default f32
+matmul may run in bf16 or TF32, far too coarse for Q.14-scale DSP data.
 
 Streaming works on value-aligned carries: each step consumes a block of
 ``N`` samples (``2*N`` divisible by ``ROW``) plus ``CR`` carried rows of
@@ -75,7 +75,7 @@ class PackedFirPlan(NamedTuple):
     nr_channels: int
     # per-chunk nonzero-row count, rounded up to a 128 lane tile (chunk i>0
     # is zero past row ``win - i*row``; contracting over those rows is pure
-    # MXU waste — trimming cuts ~30% of the matmul FLOPs at the flagship
+    # matmul waste — trimming cuts ~30% of the matmul FLOPs at the flagship
     # 8ch/128-tap shape). Empty tuple = untrimmed (legacy plans).
     chunk_nnz: tuple = ()
 
@@ -201,7 +201,7 @@ class GroupedFirPlan(NamedTuple):
     The chunked form contracts every output column over the full
     ``(cr+1) * ROW`` tap rows even though each phase ``j`` only reads the
     ``2T`` window starting at ``2*D*j`` — at 64 channels that is ~70%
-    structural zeros fed to the MXU. Here the ``opr`` phases are split into
+    structural zeros fed to the matmul. Here the ``opr`` phases are split into
     ``n_groups`` groups of ``g`` consecutive phases with ``g*2C >= 128``
     (full output lanes); group ``G`` is one dense matmul
 
@@ -209,7 +209,7 @@ class GroupedFirPlan(NamedTuple):
 
     over the windowed row view ``xw[r] = rows[r] ++ rows[r+1][:win-ROW]``.
     Tap density rises from ``2T / ((cr+1)*ROW)`` to ``2T / win_g`` — a
-    ~3.5x MXU FLOP cut at 64ch/128taps (where ``g == 1``), fading to parity
+    ~3.5x matmul FLOP cut at 64ch/128taps (where ``g == 1``), fading to parity
     at 8ch (``g == opr`` degenerates to the trimmed chunked form, which
     needs no windowed copy — so narrow banks keep the chunked tier).
     """
@@ -272,7 +272,7 @@ def make_grouped_from_plan(plan: PackedFirPlan) -> GroupedFirPlan:
 
 
 def grouped_fir_worthwhile(plan: PackedFirPlan, threshold=1.3) -> bool:
-    """True when the grouped form cuts MXU work by at least ``threshold``."""
+    """True when the grouped form cuts matmul work by at least ``threshold``."""
     chunk_macs = sum(
         _chunk_nnz(plan, i) for i in range(plan.cr_rows + 1)
     )
@@ -342,7 +342,7 @@ def packed_fir_step(plan: PackedFirPlan, carry_vals, block, gplan=None):
     ``plan.block_quantum``.
     ``gplan``: optional :class:`GroupedFirPlan` — runs the phase-grouped
     windowed matmuls instead of the chunked ones (bit-identical
-    accumulators, far fewer MXU FLOPs for wide banks).
+    accumulators, far fewer matmul FLOPs for wide banks).
     Returns (new_carry_vals, ar, ai) with ar/ai ``[rows, opr*C]`` float32 —
     channelized, decimated, NOT derotated baseband in flat (k, c) order.
     """
@@ -361,9 +361,8 @@ def packed_fir_step(plan: PackedFirPlan, carry_vals, block, gplan=None):
     rows = vals.reshape(r_tot, plan.row)
     r_valid = r_tot - plan.cr_rows
 
-    # int16 x int16 -> int32 matmul: the MXU's native integer path runs
-    # ~1.6x faster than f32-HIGHEST here, skips the int16->f32 conversion
-    # pass entirely, and uses the REFERENCE's own Q.14 tap quantization
+    # int16 x int16 -> int32 matmul: exact, skips an int16->f32
+    # conversion pass, and uses the REFERENCE's own Q.14 tap quantization
     # (multifm/demod.c:214-218) — so the fast tier's filter response equals
     # the C filter's, with full-precision (unrounded) int32 accumulators.
     # P[r] = sum_i Q_i[r + i] (window spill into the i-th following row).
@@ -410,8 +409,9 @@ def packed_fir_step_exact(plan: PackedFirPlan, carry_vals, block,
     The reference's per-output complex MAC accumulates int16*int16 products
     into a wrapping int32 (``filter/direct_fir.c:366-385``); int32 modular
     addition is order-independent, so the same lane-packed matmul computes
-    it EXACTLY — the MXU's int16 path accumulates int32 with two's-complement
-    wrap (verified on hardware). Returns (carry, a_re, a_im) with a_re/a_im
+    it EXACTLY — an int32-accumulating integer matmul wraps two's-complement
+    (on the GPU XLA widens the operands to int32; ``chip_smoke.py`` checks
+    the card's result against the CPU backend bit for bit). Returns (carry, a_re, a_im) with a_re/a_im
     ``[rows, opr*C]`` int16: the Q.28->Q.14 rounded, NOT-yet-derotated
     accumulators (reference rounding ``filter/complex.h:30-34``). Derotation
     is the serial Q.14 rotator — precomputed by the native helper

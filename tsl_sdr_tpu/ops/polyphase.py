@@ -7,7 +7,7 @@ phase advances by D (mod I) and ``(phase + D) / I`` input samples are
 consumed (``:205-224``); each output is ``round_q28_q14(dot(x[off:off+P],
 phase_taps))`` (``filter/utils.c:89-112``).
 
-TPU redesign — the key identity: the phase sequence is **affine in the output
+Accelerator redesign — the key identity: the phase sequence is **affine in the output
 index**. With initial phase p0::
 
     phase[k]  = (p0 + k*D) mod I
@@ -222,6 +222,7 @@ def _resample_kernel(carry, block, taps_sel, idx, *, exact: bool):
             win.astype(jnp.float32),
             taps_sel,
             preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         )
     new_carry = total[block.shape[0]:]
     return new_carry, out
@@ -235,7 +236,7 @@ def _resample_fast_kernel(carry, block, wf, *, s_shifts, d_rep, i_rep, k_out):
 
     Frames F[m] = total[m*D_rep : (m+1)*D_rep]; output group m is
     ``concat(F[m..m+S-1]) @ W``. Builds dense [M, S*D_rep] windows with
-    row shifts only — TPU gathers (the old path) are ~1000x slower.
+    row shifts only — no gathers.
     """
     total = jnp.concatenate([carry, block], axis=0)
     new_carry = total[block.shape[0] :]
@@ -325,7 +326,7 @@ def _resample_row_kernel(carry, block, w0, w1, *, row_in, k_row, exact):
 
     Input rows ``[M, ROW_IN]`` hit one dense ``[ROW_IN, K_ROW]`` tap
     matrix (K_ROW >= 128 outputs on the LANES of the result — the
-    transposed-residue tier's [I_rep, D_rep] operands fill <8% of the MXU
+    transposed-residue tier's [I_rep, D_rep] operands fill <8% of a 128x128 matmul
     tile; this form fills it completely) plus one trimmed spill-chunk
     matmul, exactly like ops/packed_fir. int16*int16->int32 wrap
     accumulation is order-free, so ``exact=True`` output is BIT-IDENTICAL

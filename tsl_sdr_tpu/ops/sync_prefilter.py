@@ -1,6 +1,6 @@
 """Device-side sync-candidate prefilters for egress gating.
 
-TPU form of the host prefilters in ``models/pocsag.py`` (scan(): any
+Device form of the host prefilters in ``models/pocsag.py`` (scan(): any
 32-bit phase-interleaved slicer register within hamming 4 of the POCSAG
 sync word ``pager_pocsag.c:298-334``) and ``models/ais.py`` (scan(): NRZI
 register within hamming 2 of the AIS preamble ``ais_demod.c:114-213``;
@@ -15,9 +15,9 @@ sync start — its sign bits never need to leave the device (VERDICT r2
 item 1: egress only candidate flags + the packed bits of flagged
 channels).
 
-TPU shape discipline: registers are evaluated at EVERY position via 32
+Shape discipline: registers are evaluated at EVERY position via 32
 unit-stride shifted slices (never a strided slice or gather — those are
-~1000x off on TPU); the extra positions vs the host's stride grid are
+slow on the device); the extra positions vs the host's stride grid are
 free on the VPU and only widen the superset.
 
 All inputs are ``[C, T + K]`` bit planes (channels x time, oldest first):

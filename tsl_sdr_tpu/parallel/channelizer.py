@@ -6,7 +6,7 @@ contiguous equal segments of packed ROWS on the ``time`` axis; the channel
 bank's tap matrices split on the ``channels`` axis (each channel shard gets
 its own pre-built column block, so no in-kernel gather is needed).
 
-Halo exchange over ICI, all via ``jax.lax.ppermute`` of int16 rows:
+Halo exchange between neighbouring devices, all via ``jax.lax.ppermute`` of int16 rows:
 
 * each shard sends its **first ``cr`` rows** to its *left* neighbor — the
   forward window spill of the packed FIR (output row r reads rows
@@ -33,12 +33,8 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
-
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 
 from tsl_sdr_tpu.ops.fm import fm_from_baseband
 from tsl_sdr_tpu.ops.packed_fir import PackedFirPlan
@@ -58,7 +54,7 @@ def _local_packed_fm(vals_local, w_all, omega_all, *, row, opr, cr, cols,
     r_local = vals_local.shape[0] // row
     rows_i16 = vals_local.reshape(r_local, row)
 
-    # --- halo exchange over ICI (int16, minimal bytes) ---
+    # --- halo exchange between neighbours (int16, minimal bytes) ---
     n_t = jax.lax.axis_size(TIME_AXIS)
     fwd = [(i, i + 1) for i in range(n_t - 1)]
     bwd = [(i + 1, i) for i in range(n_t - 1)]
@@ -71,11 +67,11 @@ def _local_packed_fm(vals_local, w_all, omega_all, *, row, opr, cr, cols,
     r_tot = r_local + 1 + cr
     r_valid = r_local + 1
 
-    # --- packed FIR: native int16 MXU matmul per tap chunk + row shift
+    # --- packed FIR: int16 x int16 -> int32 matmul per tap chunk + row shift
     # (same quantized taps and integer accumulation as the single-chip
     # packed tier, so shards agree with it bit-for-bit); wide channel
     # shards ride the phase-grouped windowed form instead (bit-identical,
-    # fewer MXU FLOPs — see ops/packed_fir.GroupedFirPlan) ---
+    # fewer FLOPs — see ops/packed_fir.GroupedFirPlan) ---
     if gspec is not None:
         from tsl_sdr_tpu.ops.packed_fir import _grouped_matmul
 
@@ -107,79 +103,6 @@ def _local_packed_fm(vals_local, w_all, omega_all, *, row, opr, cr, cols,
     )
     # drop the opr look-back outputs (they belong to the left shard)
     return pcm.reshape(-1, nr_ch)[opr:].T  # [C_local, r_local*opr]
-
-
-def make_sharded_multifm_pallas(plan, mesh, omega_reduced=None,
-                                interpret=None):
-    """Time-sharded multifm running the FUSED PALLAS kernel per shard.
-
-    Each time shard receives its left neighbor's last ``1 + cr`` rows over
-    ICI (the pallas chain's streaming carry: one FM look-back row + the
-    FIR history rows) and runs the fused channelize+FM kernel on its local
-    span — the multi-chip form of :class:`PallasChain`. Channel sharding
-    is not supported on this backend (the kernel's tap stack is built for
-    the full bank); use a (time, 1) mesh.
-    """
-    from tsl_sdr_tpu.ops.pallas_chain import PallasChain
-
-    if not isinstance(plan, PackedFirPlan):
-        raise TypeError("make_sharded_multifm_pallas takes a PackedFirPlan")
-    if mesh.shape[CHANNEL_AXIS] != 1:
-        raise ValueError("pallas sharded backend: channels axis must be 1")
-    if omega_reduced is None:
-        w = plan.omega_d.astype(np.float64)
-        omega_reduced = (w - 2 * np.pi * np.round(w / (2 * np.pi))).astype(
-            np.float32
-        )
-    pchain = PallasChain(plan, omega_reduced, interpret=interpret)
-    nr_ch = plan.nr_channels
-    carry_rows = pchain.carry_rows
-
-    cr = plan.cr_rows
-
-    def local(vals_local):
-        rows = vals_local.reshape(-1, plan.row)
-        n_t = jax.lax.axis_size(TIME_AXIS)
-        fwd = [(i, i + 1) for i in range(n_t - 1)]
-        bwd = [(i + 1, i) for i in range(n_t - 1)]
-        # left neighbor's last 1+cr rows = this shard's streaming carry
-        # (shard 0 receives zeros = the cold-start carry); right neighbor's
-        # first cr rows = the forward window spill. The kernel's output row
-        # k is the window at input row k+1 (carry row 0 is the FM look-back
-        # seed), so the first cr output rows reproduce the LEFT shard's
-        # tail outputs and are dropped.
-        carry = jax.lax.ppermute(rows[-carry_rows:], TIME_AXIS, fwd)
-        spill = jax.lax.ppermute(rows[:cr], TIME_AXIS, bwd)
-        _, pcm = pchain.step(carry, jnp.concatenate([rows, spill]).reshape(-1))
-        return pcm[cr:].reshape(-1, nr_ch).T  # [C, r_local*opr]
-
-    # pallas_call outputs carry no varying-mesh-axis info; disable the
-    # replication check for this shard_map (check_vma on new jax,
-    # check_rep on older releases)
-    try:
-        fn = shard_map(
-            local,
-            mesh=mesh,
-            in_specs=(P(TIME_AXIS),),
-            out_specs=P(None, TIME_AXIS),
-            check_vma=False,
-        )
-    except TypeError:
-        fn = shard_map(
-            local,
-            mesh=mesh,
-            in_specs=(P(TIME_AXIS),),
-            out_specs=P(None, TIME_AXIS),
-            check_rep=False,
-        )
-
-    @jax.jit
-    def process(vals):
-        if vals.ndim == 2:
-            vals = vals.reshape(-1)
-        return fn(vals)
-
-    return process
 
 
 def make_sharded_multifm(plan, mesh, omega_reduced=None):

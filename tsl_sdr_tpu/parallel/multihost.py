@@ -1,4 +1,4 @@
-"""Multi-host deployment helpers: ICI within a slice, DCN between hosts.
+"""Multi-host deployment helpers: fast links within a host, the network between.
 
 The reference is a single-host program (SURVEY §2.2); scale-out here is a
 new design obligation. The recipe:
@@ -6,11 +6,12 @@ new design obligation. The recipe:
 * each host calls :func:`init` (jax.distributed) so every process sees the
   global device set;
 * :func:`make_global_mesh` lays the (time, channels) axes out so the
-  CHANNEL axis stays *within* each host's slice — the channel bank needs no
+  CHANNEL axis stays *within* each host — the channel bank needs no
   inter-shard traffic at all, and the time axis's two small halo
   ``ppermute``s (window spill + FM look-back, see
-  :mod:`tsl_sdr_tpu.parallel.channelizer`) ride ICI between neighboring
-  devices; only time-shard boundaries that cross hosts touch DCN, and those
+  :mod:`tsl_sdr_tpu.parallel.channelizer`) ride the host's device links
+  (NVLink on a GPU host); only time-shard boundaries that cross hosts touch
+  the inter-host network (DCN below), and those
   move ``(cr_rows + 1) * ROW`` int16 values per block — a few KB;
 * each host feeds its own time-contiguous IQ span via
   ``jax.make_array_from_process_local_data``.
@@ -51,25 +52,27 @@ def init(coordinator_address: str | None = None, num_processes: int | None = Non
 
     if getattr(_distributed.global_state, "client", None) is not None:
         return  # already initialized
-    # CPU cross-process collectives need an explicit implementation (gloo
-    # ships in jaxlib). The platform may be selected via env OR
-    # jax.config.update('jax_platforms', ...), so check both; attempting
-    # the update on a non-CPU platform is harmless (it only applies to the
-    # CPU client) and older jaxlibs that lack the option just pass.
     import os
 
-    plat = (os.environ.get("JAX_PLATFORMS", "")
-            or str(jax.config.jax_platforms or "")).lower()
-    if plat.startswith("cpu") or plat == "":
-        try:
-            jax.config.update("jax_cpu_collectives_implementation", "gloo")
-        except Exception:
-            pass  # older jaxlib picks its own default
+    if selects_cpu(os.environ.get("JAX_PLATFORMS", ""),
+                   jax.config.jax_platforms):
+        # CPU cross-process collectives need an explicit implementation
+        # (gloo ships in jaxlib)
+        jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
     )
+
+
+def selects_cpu(env_platforms: str, config_platforms) -> bool:
+    """True when JAX will run on the CPU: the platform list comes from the
+    ``JAX_PLATFORMS`` environment variable or from
+    ``jax.config.update('jax_platforms', ...)``. With neither set JAX picks
+    the accelerator, so nothing here assumes the CPU."""
+    plat = (env_platforms or str(config_platforms or "")).lower()
+    return plat.startswith("cpu")
 
 
 def layout_devices(devs, n_local: int, channels_per_host: int):
@@ -125,7 +128,7 @@ def dcn_halo_bytes(plan, n_processes: int, channels_per_host: int = 1) -> int:
     ``cr_rows`` window-spill rows backward (see
     :func:`tsl_sdr_tpu.parallel.channelizer._local_packed_fm`); only the
     ``n_processes - 1`` boundaries between hosts ride DCN — the rest stay
-    on ICI. The IQ rows are sharded over time only, so EVERY channel-mesh
+    on the host's device links. The IQ rows are sharded over time only, so EVERY channel-mesh
     column runs its own time-axis ppermute across the boundary — the halo
     crosses DCN once per channel shard (XLA does not dedupe distinct
     ppermute pairs).

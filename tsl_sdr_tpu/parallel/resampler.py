@@ -20,12 +20,8 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
-
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 
 from tsl_sdr_tpu.ops.polyphase import ResamplerPlan
 from tsl_sdr_tpu.parallel.mesh import TIME_AXIS
@@ -90,7 +86,7 @@ def make_sharded_resampler(plan: ResamplerPlan, mesh):
     divisible by ``D_rep``. Output index k is the global output index
     (window at input offset ``k*D//I``), identical to the single-chip fast
     tier modulo the f32 sum order. Shard lengths divisible by ``ROW_IN``
-    ride the packed-row kernel (full MXU lanes); others fall back to the
+    ride the packed-row kernel (full matmul lanes); others fall back to the
     transposed-residue kernel.
     """
     if plan.phase0 != 0:

@@ -1,4 +1,4 @@
-"""Async host->device feeding: overlap IQ upload with TPU compute.
+"""Async host->device feeding: overlap IQ upload with device compute.
 
 SURVEY hard-part #4: sustaining hundreds of Msamples/s into the chip means
 the host must stage block k+1 while the device crunches block k. JAX

@@ -2,7 +2,7 @@
 
 The native library is the production ingest/egress path: a reader thread
 fills a fixed frame pool from a file/FIFO (with the reference's 8-bit
-widening and real-time pacing semantics) while the TPU computes, and sinks
+widening and real-time pacing semantics) while the device computes, and sinks
 drain PCM with EPIPE-tolerant drop-and-count behavior. Python only touches
 whole blocks.
 
@@ -384,7 +384,7 @@ class NativeSource:
         """Blocking read of up to n_samples; short result means EOF.
 
         Returns interleaved int16 values shaped [2 * got] (flat — the
-        lane-packed layout the TPU pipeline wants).
+        lane-packed layout the device pipeline wants).
         """
         out = np.empty(2 * n_samples, dtype=np.int16)
         got = self._lib.tsl_source_read(

@@ -79,7 +79,7 @@ class PushResampler:
     """Feed arbitrary-sized int16 chunks; emits resampled PCM as available.
 
     Internally primes the chain's carry with the first ``carry_len`` samples
-    and then steps in fixed ``block_in`` blocks (static shapes for the TPU
+    and then steps in fixed ``block_in`` blocks (static shapes for the device
     kernel), buffering remainders.
     """
 

@@ -1,7 +1,7 @@
 """IQ source drivers.
 
 The reference supports four sources (``multifm/{rtl_sdr,airspy,uhd,file}_if.c``).
-This build runs on TPU hosts without radio hardware attached, so the hardware
+This build runs on accelerator hosts without radio hardware attached, so the hardware
 drivers are split into their pure, testable logic (config parsing, gain
 planning — implemented and unit-tested here) and the device-open step, which
 raises a clear error unless the vendor library is importable.

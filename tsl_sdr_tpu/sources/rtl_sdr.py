@@ -100,7 +100,7 @@ class RtlSdrConfig:
         return int(round(self.db_gain_lna * 10.0))
 
     def open(self):
-        """Attach to hardware. Requires librtlsdr, which TPU hosts lack."""
+        """Attach to hardware. Requires librtlsdr, which accelerator hosts usually lack."""
         raise RuntimeError(
             "rtlsdr hardware source requires librtlsdr and an attached "
             "dongle; on this host stream a capture instead "

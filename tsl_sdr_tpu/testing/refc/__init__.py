@@ -4,7 +4,7 @@ Builds the UNMODIFIED reference sources (pvachon/tsl-sdr, env ``TSL_REF_DIR``,
 default ``/root/reference``) against the minimal TSL shim in ``shim/tsl``
 plus the flat ctypes driver ``refc_driver.c``, and exposes them as plain
 functions over numpy arrays.  Parity tests diff these outputs against the
-TPU framework message-for-message and sample-for-sample, replacing trust in
+JAX framework message-for-message and sample-for-sample, replacing trust in
 hand-transcribed numpy oracles (VERDICT r1 item 1).
 
 Everything degrades gracefully when the reference tree or a C toolchain is

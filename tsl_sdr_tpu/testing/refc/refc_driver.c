@@ -3,7 +3,7 @@
  * The reference implementation (pvachon/tsl-sdr) is compiled UNMODIFIED
  * from its tree (env TSL_REF_DIR, default /root/reference) against the
  * minimal TSL shim in shim/tsl.  This file only adapts its callback-style
- * APIs to flat buffers a ctypes caller can diff against the TPU framework:
+ * APIs to flat buffers a ctypes caller can diff against the JAX framework:
  * it is the execution-level parity oracle (VERDICT r1 item 1) that replaces
  * trust in hand-transcribed numpy oracles.
  *

@@ -1,7 +1,7 @@
 """Stream-state checkpoint/resume.
 
 The reference has no checkpointing (its pipeline state is a few KB of
-in-RAM carries, SURVEY §5); long-running TPU deployments want to survive
+in-RAM carries, SURVEY §5); long-running deployments want to survive
 restarts without losing filter history or decoder sync. Every streaming
 state in this framework is a pytree of arrays (NamedTuples or bare arrays),
 so checkpoints are one ``.npz`` per state.

@@ -1,20 +1,16 @@
-"""Single-chip speed-of-light bounds for the benchmark configs.
+"""Speed-of-light bounds for the benchmark configs, from the card's peaks.
 
-Makes the bench numbers interpretable (VERDICT r1 item 4): every
-BENCH_SUITE row gets the Msps bound implied by the chip's MXU MAC rate and
-HBM bandwidth for that algorithm, and the % of that bound attained.
-
-Chip model (TPU v5e / "v5 lite", public figures):
-
-* MXU: 197 TFLOP/s bf16 -> 98.5e12 MAC/s. The int16 x int16 -> int32 path
-  issues through the same MXU passes as bf16 on this generation, so the
-  same MAC rate is used for the integer tiers.
-* HBM: 819 GB/s.
+One table of published peaks keyed by JAX's ``device_kind``; a device
+that is not in it is an error, never a default. Each bench row gets the
+Msps bound its algorithm implies at those peaks and the % of that bound
+attained.
 
 The bounds are ALGORITHMIC lower bounds (useful MACs, minimal bytes:
 stream in once, stream results out once). Real kernels move intermediates
 too, so "% of SoL" is a conservative utilization number: 100% would mean
-zero overhead AND perfect overlap.
+zero overhead AND perfect overlap. Published peaks assume the card's full
+power limit; a card capped below it (``nvidia-smi`` ``power.limit``)
+cannot hold its top clock, so quote the limit beside every share.
 """
 
 from __future__ import annotations
@@ -22,117 +18,84 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-MXU_MACS_PER_S = 98.5e12
-HBM_BYTES_PER_S = 819e9
+
+@dataclass(frozen=True)
+class Peaks:
+    """Dense (no sparsity) peak rates of one card, operations per second
+    (one multiply-accumulate = 2 operations), and device-memory bytes/s."""
+
+    bf16: float
+    int8: float
+    tf32: float
+    f32: float
+    hbm_bytes: float
+    source: str
+
+
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": Peaks(
+        bf16=989e12, int8=1979e12, tf32=495e12, f32=67e12,
+        hbm_bytes=3.35e12,
+        source="NVIDIA H100 SXM data sheet, dense rates, 700 W"),
+}
+
+
+def peaks_for(device_kind: str) -> Peaks:
+    """The :class:`Peaks` of ``device_kind``; raises ``KeyError`` for a
+    device the table does not know."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; add it "
+            f"to utils.roofline.PEAKS (known: {sorted(PEAKS)})") from None
 
 
 @dataclass
 class Bound:
-    sol_msps: float        # min(mxu, hbm)
-    mxu_msps: float
+    sol_msps: float        # min(compute, memory)
+    compute_msps: float
     hbm_msps: float
 
     @property
     def limiter(self) -> str:
-        return "MXU" if self.mxu_msps <= self.hbm_msps else "HBM"
+        return "compute" if self.compute_msps <= self.hbm_msps else "HBM"
 
     def pct(self, measured_msps: float) -> float:
         return 100.0 * measured_msps / self.sol_msps
 
     def describe(self, measured_msps: float) -> str:
         return (f"{self.pct(measured_msps):.1f}% of the "
-                f"{self.sol_msps / 1e3:,.0f} Gsps single-chip "
+                f"{self.sol_msps / 1e3:,.0f} Gsps single-card "
                 f"speed-of-light ({self.limiter}-bound)")
 
 
-def channelizer(nr_channels: int, taps: int, decim: int) -> Bound:
+def _bound(macs_per_sample: float, bytes_per_sample: float, peaks: Peaks,
+           rate: str) -> Bound:
+    macs_per_s = getattr(peaks, rate) / 2.0
+    compute = macs_per_s / macs_per_sample / 1e6
+    hbm = peaks.hbm_bytes / bytes_per_sample / 1e6
+    return Bound(sol_msps=min(compute, hbm), compute_msps=compute,
+                 hbm_msps=hbm)
+
+
+def channelizer(nr_channels: int, taps: int, decim: int, peaks: Peaks,
+                rate: str = "int8") -> Bound:
     """N-channel complex-bandpass FIR + decimate + derotate + FM demod.
 
     Useful MACs per input sample: each channel computes one T-tap complex
     MAC (4T real MACs) per D input samples. Minimal HBM bytes per input
-    sample: 4 (IQ int16 in) + 2*C/D (PCM int16 out).
+    sample: 4 (IQ int16 in) + 2*C/D (PCM int16 out). ``rate`` names the
+    :class:`Peaks` field the MACs run at (default: the integer tensor-core
+    rate, the fastest exact route for int16 data split into int8 halves).
     """
     macs = nr_channels * 4.0 * taps / decim
     bytes_per = 4.0 + 2.0 * nr_channels / decim
-    return Bound(
-        sol_msps=min(MXU_MACS_PER_S / macs, HBM_BYTES_PER_S / bytes_per) / 1e6,
-        mxu_msps=MXU_MACS_PER_S / macs / 1e6,
-        hbm_msps=HBM_BYTES_PER_S / bytes_per / 1e6,
-    )
+    return _bound(macs, bytes_per, peaks, rate)
 
 
-def load_measured_ceilings(path=None) -> dict | None:
-    """Measured ceilings of THIS chip slice (bench/CHIP_CEILINGS.json,
-    written by bench/chip_ceiling_probe.py). Returns None when absent
-    (e.g. a fresh checkout that never ran the probe)."""
-    import json
-    from pathlib import Path
-
-    if path is None:
-        path = (Path(__file__).resolve().parents[2]
-                / "bench" / "CHIP_CEILINGS.json")
-    try:
-        return json.loads(Path(path).read_text())
-    except Exception:  # noqa: BLE001
-        return None
-
-
-def admitted_channelizer(nr_channels: int, taps: int, decim: int,
-                         ceilings: dict, backend: str = "pallas") -> Bound:
-    """Slice-ADMITTED bound: what this (possibly virtualized) chip slice
-    allows, from measured ceilings rather than spec-sheet numbers.
-
-    Spec '% of SoL' understates kernels on a slice whose Mosaic DMA path
-    caps at ~100 GB/s (vs 819 spec): the fused Pallas chain's input DMA
-    is ~2/3 of its tile time yet each term runs at its own measured
-    ceiling (labs 3-7). The Pallas model is SERIAL dma+mxu (lab7: DMA
-    and compute cannot be overlapped here); the XLA model keeps the
-    min() form against the measured 3-stream r+w bandwidth.
-
-    backend: 'pallas' (bf16x3 fused kernel: 3 MXU passes at the
-    measured bf16 rate) or 'xla'/'exact' (int16 MXU path).
-    """
-    useful_macs = nr_channels * 4.0 * taps / decim
-    bytes_per = 4.0 + 2.0 * nr_channels / decim
-    if backend == "pallas":
-        dma = ceilings.get("pallas_dma_gbps", 100.0) * 1e9
-        mxu = ceilings.get("mxu_bf16", 94.64) * 1e12
-        t = bytes_per / dma + 3.0 * useful_macs / mxu  # serial, no overlap
-        msps = 1.0 / t / 1e6
-        return Bound(sol_msps=msps, mxu_msps=msps, hbm_msps=msps)
-    mxu = ceilings.get("mxu_i16", 24.09) * 1e12
-    bw = ceilings.get("hbm_rw_i16", 256.7) * 1e9
-    return Bound(
-        sol_msps=min(mxu / useful_macs, bw / bytes_per) / 1e6,
-        mxu_msps=mxu / useful_macs / 1e6,
-        hbm_msps=bw / bytes_per / 1e6,
-    )
-
-
-def admitted_resampler(taps: int, interp: int, decim: int,
-                       ceilings: dict, backend: str = "pallas") -> Bound:
-    """Slice-admitted bound for the rational resampler (see
-    admitted_channelizer). The fused Pallas kernel is bf16x4 (4 MXU
-    passes); the XLA packed-row tier is int16."""
-    phase_len = math.ceil(taps / interp)
-    useful_macs = (interp / decim) * phase_len
-    bytes_per = 2.0 + 2.0 * interp / decim
-    if backend == "pallas":
-        dma = ceilings.get("pallas_dma_gbps", 100.0) * 1e9
-        mxu = ceilings.get("mxu_bf16", 94.64) * 1e12
-        t = bytes_per / dma + 4.0 * useful_macs / mxu
-        msps = 1.0 / t / 1e6
-        return Bound(sol_msps=msps, mxu_msps=msps, hbm_msps=msps)
-    mxu = ceilings.get("mxu_i16", 24.09) * 1e12
-    bw = ceilings.get("hbm_rw_i16", 256.7) * 1e9
-    return Bound(
-        sol_msps=min(mxu / useful_macs, bw / bytes_per) / 1e6,
-        mxu_msps=mxu / useful_macs / 1e6,
-        hbm_msps=bw / bytes_per / 1e6,
-    )
-
-
-def resampler(taps: int, interp: int, decim: int) -> Bound:
+def resampler(taps: int, interp: int, decim: int, peaks: Peaks,
+              rate: str = "int8") -> Bound:
     """Rational I/D polyphase resampler on real int16 PCM.
 
     Per input sample: I/D outputs, each a ceil(T/I)-tap real MAC.
@@ -141,8 +104,4 @@ def resampler(taps: int, interp: int, decim: int) -> Bound:
     phase_len = math.ceil(taps / interp)
     macs = (interp / decim) * phase_len
     bytes_per = 2.0 + 2.0 * interp / decim
-    return Bound(
-        sol_msps=min(MXU_MACS_PER_S / macs, HBM_BYTES_PER_S / bytes_per) / 1e6,
-        mxu_msps=MXU_MACS_PER_S / macs / 1e6,
-        hbm_msps=HBM_BYTES_PER_S / bytes_per / 1e6,
-    )
+    return _bound(macs, bytes_per, peaks, rate)
