@@ -21,7 +21,7 @@ tier, the resampler's packed-row and transposed tiers (16/25, 821 taps)
 and the sharded channelizer's and resampler's per-shard kernels.
 Optimized HLO text goes to ``--out``. Needs a GPU; every line names the card and its power limit.
 
-    python bench/channelizer_xla_profile.py [--out chiprun_out/xla_profile]
+    python bench/channelizer_xla_profile.py --out DIR
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ DECIM = 40
 TAPS = 128
 BLOCK = 16_711_680
 WIDTHS = (8, 64, 256)
+TRIALS = 5  # timed trials per width; the median is reported
+STEPS = 4   # steps per trial, state threaded from step to step
 
 
 def _entry_s32_bytes(hlo_text: str) -> int:
@@ -98,8 +100,7 @@ def _kernel_classes(hlo_text: str) -> tuple[set, set]:
     return dots, fms
 
 
-def profile_width(nr_ch: int, out: Path, card: str, trials: int = 5,
-                  steps: int = 4) -> dict:
+def profile_width(nr_ch: int, out: Path, card: str) -> dict:
     import jax
     import jax.numpy as jnp
 
@@ -134,13 +135,13 @@ def profile_width(nr_ch: int, out: Path, card: str, trials: int = 5,
     st, pcm = step(state, block)  # warm
     pcm.block_until_ready()
     per_step = []
-    for _ in range(trials):
+    for _ in range(TRIALS):
         st = state
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(STEPS):
             st, pcm = step(st, block)
         pcm.block_until_ready()
-        per_step.append((time.perf_counter() - t0) / steps)
+        per_step.append((time.perf_counter() - t0) / STEPS)
     med = statistics.median(per_step)
     print(f"[{card}] {tag}: step times s {per_step}; median {med} s = "
           f"{BLOCK / med / 1e6} Msps (host clock, block_until_ready)",
@@ -247,9 +248,8 @@ def other_routes(out: Path, card: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", default=str(REPO / "chiprun_out" /
-                                          "xla_profile"))
-    ap.add_argument("--widths", default=",".join(map(str, WIDTHS)))
+    ap.add_argument("--out", required=True,
+                    help="directory for the optimized HLO and summary.json")
     args = ap.parse_args(argv)
 
     from tsl_sdr_tpu.utils.device import (card_line, enable_compile_cache,
@@ -262,8 +262,7 @@ def main(argv=None):
     out.mkdir(parents=True, exist_ok=True)
     print(f"card: {card}; jax device {dev}", flush=True)
     other_routes(out, card)
-    rows = [profile_width(int(w), out, card)
-            for w in args.widths.split(",")]
+    rows = [profile_width(w, out, card) for w in WIDTHS]
     (out / "summary.json").write_text(json.dumps(
         {"card": card, "device": dev, "rows": rows}, indent=1))
 

@@ -2,7 +2,7 @@
 """Live deployment soak on the GPU.
 
 Proves the run-forever deployment story (the reference's operational shape,
-``/root/reference/multifm/multifm.c:163-165``) on hardware, not just in
+``multifm/multifm.c:163-165`` of pvachon/tsl-sdr) on hardware, not just in
 pytest: ``pipeline-tpu --follow`` consumes a named FIFO fed by a paced
 writer at the flagship wideband rate (1.2288 Msps, 8 POCSAG channels) for
 the requested duration, with ONE kill (SIGTERM -> checkpoint) and resume
@@ -19,10 +19,10 @@ JSON line):
 * end-to-end latency percentiles (write -> decoded-message-on-disk),
 * the kill/resume event log.
 
-The primary and its hot standby share one card, so both legs run with
-``XLA_PYTHON_CLIENT_MEM_FRACTION`` set to the pipeline CLI's standby share
-(0.45 each; two processes at JAX's default of three quarters cannot both
-start).
+The primary and its hot standby share one card, so this launcher starts
+every leg with ``XLA_PYTHON_CLIENT_MEM_FRACTION=0.45`` (two processes at
+JAX's default of three quarters cannot both start), as README's "Hot
+standby on one card" says.
 
 Usage:  python bench/soak_deployment.py [--minutes 30] [--kill-at 0.5]
 """
@@ -40,13 +40,11 @@ from pathlib import Path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# the pipeline legs run on the card; this parent process only generates
-# the stream and reads results, so it stays off the card (a JAX process
-# reserves its memory share when it starts)
-from tsl_sdr_tpu.cli.pipeline import STANDBY_MEM_FRACTION  # noqa: E402
-
-CHILD_ENV = dict(os.environ)
-CHILD_ENV.setdefault("XLA_PYTHON_CLIENT_MEM_FRACTION", STANDBY_MEM_FRACTION)
+# the pipeline legs run on the card, each with its share of the card's
+# memory; this parent process only generates the stream and reads results,
+# so it stays off the card (a JAX process reserves its memory share when
+# it starts)
+CHILD_ENV = dict(os.environ, XLA_PYTHON_CLIENT_MEM_FRACTION="0.45")
 os.environ["JAX_PLATFORMS"] = "cpu"
 
 import numpy as np
@@ -65,6 +63,12 @@ BAUD = 1200
 # depth 0 + sync drain decodes each block inside its own push.
 BLOCK_TARGET = 1_228_800
 INFLIGHT_DEPTH = 0
+# noise-only stream seconds after the last burst. A leg run with
+# --state-file that sees the stream end checkpoints what it has not
+# finished (the filter history and the decoder's open message) for its
+# successor instead of flushing it, so without a tail the last burst is
+# never decoded by anyone.
+TAIL_SECONDS = 2
 
 
 class PacedWriter(threading.Thread):
@@ -117,6 +121,26 @@ class PacedWriter(threading.Thread):
         iq[4096:4096 + m] += sig[:m]
         return iq.astype(np.int16)
 
+    def _write(self, f, second: int, buf: bytes):
+        """Write stream-second ``second`` at real-time pace; returns the
+        (possibly reopened) FIFO."""
+        delay = self.t_start + second - time.monotonic()
+        if delay > 0:
+            time.sleep(delay)
+        view = memoryview(buf)
+        while len(view) and not self.stop_flag.is_set():
+            try:
+                k = f.write(view)
+                view = view[k:]
+                self.bytes_written += k
+            except BrokenPipeError:
+                # reader restarting (kill/resume window): reopen
+                # blocks until the resumed process attaches
+                f.close()
+                self.reopens += 1
+                f = open(self.fifo, "wb", buffering=0)
+        return f
+
     def run(self):
         self.t_start = time.monotonic()
         deadline = self.t_start + self.seconds
@@ -124,29 +148,16 @@ class PacedWriter(threading.Thread):
         f = open(self.fifo, "wb", buffering=0)
         try:
             while not self.stop_flag.is_set():
-                now = time.monotonic()
-                if now >= deadline:
+                if time.monotonic() >= deadline:
                     break
-                buf = self._second(seq).tobytes()
-                # pace: second k of stream goes out during wall second k
-                target = self.t_start + seq
-                delay = target - time.monotonic()
-                if delay > 0:
-                    time.sleep(delay)
-                view = memoryview(buf)
-                while len(view) and not self.stop_flag.is_set():
-                    try:
-                        k = f.write(view)
-                        view = view[k:]
-                        self.bytes_written += k
-                    except BrokenPipeError:
-                        # reader restarting (kill/resume window): reopen
-                        # blocks until the resumed process attaches
-                        f.close()
-                        self.reopens += 1
-                        f = open(self.fifo, "wb", buffering=0)
+                f = self._write(f, seq, self._second(seq).tobytes())
                 self.write_times[seq] = time.time()
                 seq += 1
+            for k in range(TAIL_SECONDS):
+                if self.stop_flag.is_set():
+                    break
+                noise = self._rng.normal(scale=90, size=(FS, 2))
+                f = self._write(f, seq + k, noise.astype(np.int16).tobytes())
         finally:
             try:
                 f.close()
@@ -163,8 +174,8 @@ def launch_pipeline(cfg_path, fifo, out_path, state_file, standby=False):
     device session immediately but only attaches to the FIFO once the
     primary's checkpoint file appears (failover in seconds instead of
     paying compilation and device set-up under live traffic). Every leg
-    gets the standby memory share, so a primary and its standby fit on
-    one card together."""
+    gets 0.45 of the card's memory (``CHILD_ENV``), so a primary and its
+    standby fit on one card together."""
     return subprocess.Popen(
         [sys.executable, "-m", "tsl_sdr_tpu.cli.pipeline", str(cfg_path),
          "--iq-file", str(fifo), "--iq-format", "cs16", "--follow",
@@ -374,11 +385,16 @@ def main():
             events.append(("unexpected-exit", time.time(), proc.returncode))
             break
 
-    writer.stop_flag.set()
+    # the writer ends by itself after its noise tail and the legs drain
+    # what it wrote; scanning goes on at the loop's 0.5 s resolution so the
+    # last bursts' latencies measure the pipeline, not this wait
+    drain_end = time.monotonic() + TAIL_SECONDS + max(15.0, args.minutes)
+    while time.monotonic() < drain_end and (
+            writer.is_alive() or not set(writer.write_times) <= seen):
+        time.sleep(0.5)
+        scan_output()
+    writer.stop_flag.set()  # only a dead reader can still hold it up
     writer.join(timeout=30)
-    # let the pipeline drain the tail then stop it cleanly
-    time.sleep(max(15.0, args.minutes))  # generous drain for the last blocks
-    scan_output()
     procs = {id(proc): proc}
     if "proc" in sb:
         procs.setdefault(id(sb["proc"]), sb["proc"])
@@ -444,6 +460,8 @@ def main():
         "outage_s": outage,
         "bursts_lost_in_outage": lost_in,
         "bursts_lost_outside": lost_out,
+        "lost_seqs": sorted(set(writer.write_times) - seen),
+        "tail_s": TAIL_SECONDS,
         "decode_pct_outside_outage": round(
             100.0 * dec_out / max(dec_out + lost_out, 1), 2),
         "fifo_reopens": writer.reopens,

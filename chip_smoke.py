@@ -19,9 +19,8 @@ at the reference's own deployment sizes, with every input generated from
    encoded message decoded, nothing else, the same in both modes;
 4. ``multifm-tpu`` (``cli.multifm.main``, native runtime) on the 8-channel
    ``etc/multifm_rtlsdr_8ch.json`` plan switched to a file source: each
-   channel's PCM equals the library's production tier on the same capture
-   within that tier's bound (the CLI steps block by block, the library
-   scans the capture, and the float discriminator may round apart).
+   channel's PCM equals the library's production tier on the same capture,
+   sample for sample and at the same length.
 
 ``--four-cards`` runs only the four-card phase instead: ``pipeline-tpu
 --time-shards 4`` on the pager capture, ``--channel-shards 4`` on the
@@ -215,24 +214,17 @@ def phase_multifm(seed: int, tmp: Path, clock):
         raise RuntimeError(f"multifm-tpu exited {rc}")
     want = MultifmChain.from_config(MultifmConfig.load(str(cfg_path)),
                                     exact=False).process_array(iq)
-    # the CLI steps block by block and the library scans the capture:
-    # different programs, so the float discriminator may round apart by a
-    # PCM LSB; the production tier's own bound applies
-    worst = None
     for i in range(want.shape[0]):
         got = np.fromfile(tmp / f"mf_ch{i}.pcm", np.int16)
-        n = min(got.size, want.shape[1])
-        a = numerics.lsb_agreement(got[:n], want[i, :n], skip=0)
-        a["identical"] = float(np.mean(got[:n] == want[i, :n]))
-        if n < 0.99 * want.shape[1] or not numerics.lsb_ok(a):
+        if got.shape != want[i].shape or not np.array_equal(got, want[i]):
+            n = min(got.size, want.shape[1])
+            a = numerics.lsb_agreement(got[:n], want[i, :n], skip=0)
             raise AssertionError(f"multifm channel {i}: {got.size} samples "
-                                 f"vs library {want.shape[1]}: {a}")
-        if worst is None or a["identical"] < worst["identical"]:
-            worst = a
+                                 f"vs library {want.shape[1]}; common span "
+                                 f"{a}")
     say("multifm", f"multifm-tpu native runtime, {want.shape[0]} channels "
-        f"x {want.shape[1]} samples vs the library production tier: worst "
-        f"channel {worst['identical']:.6f} identical, max "
-        f"{worst['max_lsb']} LSB; wall {wall:.2f} s, compile (set-up) "
+        f"x {want.shape[1]} samples: identical to the library production "
+        f"tier, same length; wall {wall:.2f} s, compile (set-up) "
         f"{clock.seconds - c0:.2f} s (one smoke reading)")
 
 

@@ -78,11 +78,6 @@ def _check_resume_offset(path, fmt, resume_samples):
 
 
 
-# share of the card's memory each of a primary/standby pair reserves: two
-# JAX processes at the default three quarters cannot both start on one card
-STANDBY_MEM_FRACTION = "0.45"
-
-
 def build_argparser():
     from tsl_sdr_tpu.cli import cli_version
 
@@ -150,11 +145,10 @@ def build_argparser():
                         "primary — before restoring and attaching to the "
                         "stream. Compilation and device set-up are paid "
                         "while the primary still serves, so failover costs "
-                        "seconds. Both processes share one card: this "
-                        "process defaults XLA_PYTHON_CLIENT_MEM_FRACTION "
-                        "to %s, and the primary must be started with the "
-                        "same setting (README, 'Hot standby')" %
-                        STANDBY_MEM_FRACTION)
+                        "seconds. To share one card, start the primary and "
+                        "the standby each with "
+                        "XLA_PYTHON_CLIENT_MEM_FRACTION=0.45 (README, 'Hot "
+                        "standby on one card')")
     p.add_argument("--no-warm", action="store_true",
                    help="skip the device warm block before a --follow "
                         "stream (default: run one throwaway zeros block "
@@ -185,13 +179,6 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.standby:
-        import os
-
-        # a standby warms while the primary holds its share of the card;
-        # JAX reads this when the backend starts, so set it before that
-        os.environ.setdefault("XLA_PYTHON_CLIENT_MEM_FRACTION",
-                              STANDBY_MEM_FRACTION)
     from tsl_sdr_tpu.utils.device import enable_compile_cache
 
     enable_compile_cache()

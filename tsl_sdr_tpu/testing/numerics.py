@@ -139,27 +139,18 @@ def lsb_ok(agreement: dict) -> bool:
             and agreement["within_1"] >= MIN_WITHIN_1)
 
 
-def _on(device, fn, *args, **kwargs):
+def _on_host(fn, *args, **kwargs):
+    """``fn`` run on JAX's CPU backend (the exact tier's reference)."""
     import jax
 
-    if device is None:
-        return fn(*args, **kwargs)
-    with jax.default_device(device):
+    with jax.default_device(jax.devices("cpu")[0]):
         return fn(*args, **kwargs)
 
 
-def host_device():
-    import jax
-
-    return jax.devices("cpu")[0]
-
-
-def check_channelizer(width: Width, n_samples: int, seed: int = 0,
-                      reference_device=None) -> dict:
+def check_channelizer(width: Width, n_samples: int, seed: int = 0) -> dict:
     """Both channelizer contracts at one width on JAX's default device.
 
-    ``reference_device`` runs the exact tier's reference (default: the
-    CPU backend). Returns the agreement figures plus ``exact_equal``,
+    Returns the agreement figures plus ``exact_equal``,
     ``production_ok``, ``step_memory`` (``memory_analysis()`` of the
     compiled production step) and ``peak_bytes_in_use`` (None where the
     backend keeps no statistics)."""
@@ -171,8 +162,7 @@ def check_channelizer(width: Width, n_samples: int, seed: int = 0,
     x = wideband(n_samples, seed)
     exact_chain = MultifmChain(lpf, offsets, fs, d, gains=gains, exact=True)
     got_exact = exact_chain.process_array_exact_packed(x)
-    ref_exact = _on(reference_device or host_device(),
-                    exact_chain.process_array_exact_packed, x)
+    ref_exact = _on_host(exact_chain.process_array_exact_packed, x)
     exact_equal = (got_exact.shape == ref_exact.shape
                    and bool(np.array_equal(got_exact, ref_exact)))
 
@@ -196,8 +186,7 @@ def check_channelizer(width: Width, n_samples: int, seed: int = 0,
             "peak_bytes_in_use": stats.get("peak_bytes_in_use")}
 
 
-def check_resampler(n_samples: int, seed: int = 0,
-                    reference_device=None) -> dict:
+def check_resampler(n_samples: int, seed: int = 0) -> dict:
     """The resampler's packed-row tier at 16/25 (821 taps): exact tier
     bit-for-bit against the CPU backend, production tier within the LSB
     bound of the exact tier."""
@@ -218,8 +207,7 @@ def check_resampler(n_samples: int, seed: int = 0,
                           block_out=65_536)
     assert exact.plan.k_row and fast.plan.k_row, "packed-row tier expected"
     got_exact = exact.process_array(pcm)
-    ref_exact = _on(reference_device or host_device(), exact.process_array,
-                    pcm)
+    ref_exact = _on_host(exact.process_array, pcm)
     exact_equal = (got_exact.shape == ref_exact.shape
                    and bool(np.array_equal(got_exact, ref_exact)))
     got = fast.process_array(pcm)
@@ -233,8 +221,7 @@ def check_resampler(n_samples: int, seed: int = 0,
 
 def check_sharded_multifm(nr_channels: int, time_shards: int,
                           ch_shards: int, *, taps: int, decimation: int,
-                          fs: float, segment: int, seed: int,
-                          devices=None) -> dict:
+                          fs: float, segment: int, seed: int) -> dict:
     """``parallel.channelizer.make_sharded_multifm`` on a (time, channels)
     mesh against the primed single-device chain over the same stream.
 
@@ -264,9 +251,8 @@ def check_sharded_multifm(nr_channels: int, time_shards: int,
     _, single = chain.step(state, iq[c_len:][: (s - c_len) // q * q])
     single = np.asarray(single)
 
-    devices = jax.devices() if devices is None else devices
     mesh = make_mesh(time=time_shards, channels=ch_shards,
-                     devices=devices[: time_shards * ch_shards])
+                     devices=jax.devices()[: time_shards * ch_shards])
     sharded = np.asarray(make_sharded_multifm(chain.packed_plan, mesh)(iq))
     m1 = single.shape[1] - 2
     diff = np.abs(single[:, 2:m1].astype(np.int32)

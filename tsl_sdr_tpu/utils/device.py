@@ -31,8 +31,9 @@ def compile_cache_dir() -> Path:
     return Path(env) if env else DEFAULT_CACHE_DIR
 
 
-def enable_compile_cache(min_compile_time_secs: float = 0.5) -> Path:
-    """Turn on JAX's persistent compilation cache (see module docstring).
+def enable_compile_cache() -> Path:
+    """Turn on JAX's persistent compilation cache (see module docstring)
+    for programs that take at least half a second to compile.
 
     Safe to call more than once and before or after the backend starts."""
     import jax
@@ -40,8 +41,7 @@ def enable_compile_cache(min_compile_time_secs: float = 0.5) -> Path:
     path = compile_cache_dir()
     if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
         jax.config.update("jax_compilation_cache_dir", str(path))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                      float(min_compile_time_secs))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     return path
 
 
